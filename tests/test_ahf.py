@@ -9,12 +9,12 @@ import math
 
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build
 
 
 def test_ylm_orthonormal():
-    from athenak_tpu.z4c.ahf import FastFlow
+    from athenak_jax.z4c.ahf import FastFlow
 
     ff = FastFlow(lmax=4, ntheta=16)
     Y = ff.Y
@@ -79,7 +79,7 @@ punc_ADM_mass = 1.0
 def test_ahf_schwarzschild_puncture():
     """AH of puncture initial data: r_mean = M/2, M_irr = M to ~grid
     truncation (reference: fastflow on one-puncture)."""
-    from athenak_tpu.z4c.ahf import FastFlow, adm_fields_from_z4c
+    from athenak_jax.z4c.ahf import FastFlow, adm_fields_from_z4c
 
     pin = ParameterInput.from_string(DECK)
     mesh, phys, pgen, driver, state = build(pin)
@@ -146,7 +146,7 @@ def test_two_punctures_brill_lindquist():
     """P=S=0: analytic Brill-Lindquist data — constraints at the
     discretization level; both horizons found with masses ~ m_i."""
     import jax
-    from athenak_tpu.z4c.ahf import FastFlow, adm_fields_from_z4c
+    from athenak_jax.z4c.ahf import FastFlow, adm_fields_from_z4c
 
     pin = ParameterInput.from_string(TP_DECK)
     mesh, phys, pgen, driver, state = build(pin)

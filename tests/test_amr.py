@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from athenak_tpu.amr import update_tree
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
+from athenak_jax.amr import update_tree
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
 
 WRAPS = {"x1": True, "x2": True, "x3": True}
 
@@ -65,7 +65,7 @@ def test_update_tree_two_one_ripple():
     assert levs.get(2, 0) == 4
     # ... and the whole tree remains 2:1 balanced: the ml-table builder
     # raises on any face with a missing fine donor family
-    from athenak_tpu.refinement import build_ml_tables
+    from athenak_jax.refinement import build_ml_tables
     build_ml_tables(lv2, (4, 4, 1), (True, True, False), WRAPS)
 
 
@@ -385,7 +385,7 @@ def test_amr_lwave2d_convergence(tmp_path):
 # (reference: restart.cpp:207-310 lloc lists + BuildTreeFromRestart)
 # ---------------------------------------------------------------------------
 def test_amr_restart_bit_exact_continuation(tmp_path):
-    from athenak_tpu.main import run_restart
+    from athenak_jax.main import run_restart
 
     # uninterrupted run to nlim=40 (tree refines along the way)
     pin1 = ParameterInput.from_string(HYDRO_DECK)

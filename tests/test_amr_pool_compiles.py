@@ -9,8 +9,8 @@ one entry per *capacity*, not per tree.
 
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build
 
 DECK = """
 <job>
@@ -100,7 +100,7 @@ def test_pool_cycle_multidevice_bounded():
     comm metadata on amr_lb_seq_ changes, mesh.hpp:176-184)."""
     import jax
 
-    from athenak_tpu.parallel import make_device_mesh
+    from athenak_jax.parallel import make_device_mesh
 
     assert len(jax.devices()) >= 8
 

@@ -1,7 +1,7 @@
 """ParameterInput parser tests (reference semantics:
 src/parameter_input.hpp)."""
 
-from athenak_tpu.athinput import ParameterInput
+from athenak_jax.athinput import ParameterInput
 
 DECK = """
 <comment>

@@ -12,8 +12,8 @@ the cloud.
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build
 
 HYDRO_DECK = """
 <job>
@@ -247,9 +247,9 @@ def test_be_collapse_deck_catalog_entries():
     (inputs/tests/be_collapse{,_mhd}.athinput)."""
     import os
 
-    from athenak_tpu.main import setup_precision
-    from athenak_tpu.mesh import Mesh
-    from athenak_tpu.outputs import make_outputs
+    from athenak_jax.main import setup_precision
+    from athenak_jax.mesh import Mesh
+    from athenak_jax.outputs import make_outputs
 
     root = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "inputs", "tests")

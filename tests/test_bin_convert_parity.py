@@ -9,8 +9,8 @@ import sys
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
 
 REF_VIS = "/root/reference/vis/python"
 

@@ -8,9 +8,9 @@ import os
 
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
-from athenak_tpu.z4c.cce import (CCE, chebyshev2_points,
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
+from athenak_jax.z4c.cce import (CCE, chebyshev2_points,
                                  gauss_legendre_sphere, read_cce,
                                  read_horizon_dump, ylm_scalar)
 
@@ -123,7 +123,7 @@ def test_cce_and_horizon_dump_roundtrip(tmp_path):
         assert d["real"][0, 4, 0] > d["real"][2, 4, 0] > 0.0
 
         # independent projection check at the innermost shell
-        from athenak_tpu.z4c.cce import cce_fields
+        from athenak_jax.z4c.cce import cce_fields
         wt = CCE(pin, mesh, 0)
         fields = cce_fields(phys, state["u"])
         data_r, data_i = wt.decompose(mesh, fields)

@@ -1,7 +1,7 @@
 """Block-coalescing parity: a uniform multi-block mesh run as one
 superblock must reproduce the block-wise run exactly.
 
-The transform (athenak_tpu/parallel/coalesce.py) is the TPU analogue of
+The transform (athenak_jax/parallel/coalesce.py) is the analogue of
 the reference's MeshBlockPack batching (reference:
 src/mesh/meshblock_pack.hpp:44-97) taken to its limit: co-resident
 blocks are physically merged, so the same finite-volume stencils run on
@@ -10,8 +10,8 @@ the same global cell values and the results agree to round-off.
 
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
 
 
 SOD = """

@@ -10,7 +10,7 @@ import os
 
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
+from athenak_jax.athinput import ParameterInput
 
 ROOT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "inputs")
@@ -22,9 +22,9 @@ DECKS = sorted(glob.glob(os.path.join(ROOT, "**", "*.athinput"),
 @pytest.mark.parametrize(
     "deck", DECKS, ids=[os.path.relpath(d, ROOT) for d in DECKS])
 def test_deck_validates(deck):
-    from athenak_tpu.main import build, setup_precision
-    from athenak_tpu.mesh import Mesh
-    from athenak_tpu.outputs import make_outputs
+    from athenak_jax.main import build, setup_precision
+    from athenak_jax.mesh import Mesh
+    from athenak_jax.outputs import make_outputs
 
     pin = ParameterInput.from_file(deck)
     setup_precision(pin)

@@ -4,9 +4,9 @@ analytic sanity on known fields."""
 
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build
-from athenak_tpu.outputs.variables import resolve
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build
+from athenak_jax.outputs.variables import resolve
 
 MHD_DECK = """
 <job>

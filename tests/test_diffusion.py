@@ -14,9 +14,9 @@ import math
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
-from athenak_tpu.indices import IDN, IEN, IVY
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
+from athenak_jax.indices import IDN, IEN, IVY
 
 BASE = """
 <job>

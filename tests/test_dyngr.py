@@ -14,8 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build
 
 MUB1 = """
 <job>
@@ -208,7 +208,7 @@ diss = 0.5
 
 def test_tov_solver_mass_radius():
     """K=100 Gamma=2 rhoc=1.28e-3: the textbook M=1.400, R=9.59 star."""
-    from athenak_tpu.utils_tov import PolytropeEOS, TOVStar
+    from athenak_jax.utils_tov import PolytropeEOS, TOVStar
     tov = TOVStar(PolytropeEOS(100.0, 2.0), rhoc=1.28e-3, dr=5e-4)
     assert abs(tov.M - 1.400) < 0.005
     assert abs(tov.R_edge - 9.59) < 0.05
@@ -244,5 +244,5 @@ def test_tov_coupled_z4c_stable():
     drift = abs(w[:, 0].max() - 1.28e-3) / 1.28e-3
     assert drift < 0.10, f"central density drift {drift}"
     # lapse stays physical
-    from athenak_tpu.z4c.z4c import I_ALPHA
+    from athenak_jax.z4c.z4c import I_ALPHA
     assert z[:, I_ALPHA].min() > 0.1 and z[:, I_ALPHA].max() < 1.05

@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build
-from athenak_tpu.parallel import make_device_mesh, shard_state
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build
+from athenak_jax.parallel import make_device_mesh, shard_state
 
 DECK = """
 <job>

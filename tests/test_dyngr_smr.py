@@ -11,8 +11,8 @@ and fully coupled Z4c — stays near equilibrium, matching the uniform
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build
 
 TOV_SMR = """
 <job>
@@ -130,5 +130,5 @@ def test_tov_coupled_z4c_smr_stable():
     assert np.isfinite(w).all() and np.isfinite(z).all()
     drift = abs(w[:, 0].max() - 1.28e-3) / 1.28e-3
     assert drift < 0.13, f"central density drift {drift}"
-    from athenak_tpu.z4c.z4c import I_ALPHA
+    from athenak_jax.z4c.z4c import I_ALPHA
     assert z[:, I_ALPHA].min() > 0.1 and z[:, I_ALPHA].max() < 1.05

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from athenak_tpu.eos_ps import (CompOSEPS, HybridPS, IdealGasPS,
+from athenak_jax.eos_ps import (CompOSEPS, HybridPS, IdealGasPS,
                                 PiecewisePolytropePS, PrimitiveSolverPS,
                                 NQTLogs, spatial_inv)
 

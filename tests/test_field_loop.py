@@ -9,8 +9,8 @@ lw_implode (reference: src/pgen/tests/lw_implode.cpp, Liska & Wendroff
 
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
 
 LOOP_DECK = """
 <job>

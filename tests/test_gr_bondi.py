@@ -8,9 +8,9 @@ stationary to truncation error.
 import numpy as np
 import jax.numpy as jnp
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
-from athenak_tpu.gr.cks import metric, metric_derivatives
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
+from athenak_jax.gr.cks import metric, metric_derivatives
 
 DECK = """
 <job>

@@ -7,11 +7,11 @@ GRMHD branch)
 import jax.numpy as jnp
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
-from athenak_tpu.gr.cks import metric
-from athenak_tpu.ops.eos import EOSData
-from athenak_tpu.ops.eos_gr import (cons_to_prim_gr_mhd,
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
+from athenak_jax.gr.cks import metric
+from athenak_jax.ops.eos import EOSData
+from athenak_jax.ops.eos_gr import (cons_to_prim_gr_mhd,
                                     prim_to_cons_gr_mhd)
 
 

@@ -8,8 +8,8 @@ thresholds here are set at 0.1/0.12.)
 
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
 
 DECK = """
 <job>

@@ -10,9 +10,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build
-from athenak_tpu.indices import IDN
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build
+from athenak_jax.indices import IDN
 
 DECK = """
 <job>

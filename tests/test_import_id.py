@@ -8,8 +8,8 @@ import it through the file path, and compare against the direct pgen.
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build
 
 Z4C_DECK = """
 <job>
@@ -65,7 +65,7 @@ def _donor_puncture(path, n=96, ext=8.0, m=1.0):
 
 
 def test_z4c_adm_import_matches_direct(tmp_path):
-    from athenak_tpu.z4c.z4c import I_ALPHA, I_CHI, I_GXX
+    from athenak_jax.z4c.z4c import I_ALPHA, I_CHI, I_GXX
 
     donor = str(tmp_path / "bl.npz")
     _donor_puncture(donor)
@@ -149,7 +149,7 @@ pgen_name = {pgen}
 def _donor_tov(path, mesh, phys, n=80, ext=18.0):
     """Sample the TOV-star solution onto a donor grid via the tov pgen's
     own solver (the 'external solver output' stand-in)."""
-    from athenak_tpu.utils_tov import PolytropeEOS, TOVStar
+    from athenak_jax.utils_tov import PolytropeEOS, TOVStar
 
     eos = PolytropeEOS(kappa=100.0, gamma=2.0)
     tov = TOVStar(eos, rhoc=1.28e-3, dr=1e-3)

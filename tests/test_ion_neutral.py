@@ -13,9 +13,9 @@ import math
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
-from athenak_tpu.indices import IDN, IVX
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
+from athenak_jax.indices import IDN, IVX
 
 DECK = """
 <job>

@@ -9,9 +9,9 @@ import math
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
-from athenak_tpu.pgen import jeans_wave
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
+from athenak_jax.pgen import jeans_wave
 
 DECK = """
 <job>

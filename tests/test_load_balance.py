@@ -8,13 +8,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build
-from athenak_tpu.mesh import load_balance
-from athenak_tpu.parallel import make_device_mesh
-from athenak_tpu.parallel.shard_comm import shard_layout, unpad_state
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build
+from athenak_jax.mesh import load_balance
+from athenak_jax.parallel import make_device_mesh
+from athenak_jax.parallel.shard_comm import shard_layout, unpad_state
 
-from tests.test_shard_comm import DECK
+# by module name (pytest puts tests/ on sys.path): an installed package
+# named ``tests`` would shadow ``tests.test_shard_comm``
+from test_shard_comm import DECK
 
 
 def _check(cost, nranks):

@@ -7,8 +7,8 @@ Wave flags: 0/6 fast, 1/5 Alfven, 2/4 slow, 3 entropy.
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
 
 DECK = """
 <job>

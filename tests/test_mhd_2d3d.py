@@ -5,8 +5,8 @@ AMR test intent (reference: tst/test_suite/nr/ divb tests)."""
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
 
 OT_DECK = """
 <job>
@@ -146,7 +146,7 @@ def test_blast3d_divb_and_symmetry(tmp_path):
     mbi = mesh.mb_indcs
     act = (slice(None), slice(mbi.ks, mbi.ke + 1),
            slice(mbi.js, mbi.je + 1), slice(mbi.is_, mbi.ie + 1))
-    from athenak_tpu.indices import IEN, IDN
+    from athenak_jax.indices import IEN, IDN
     etot = u[:, IEN][act].sum()
     d = u[:, IDN][act].sum()
     # initial totals: mass = d_amb*V; energy = sum(p/gm1) + B^2/2

@@ -7,9 +7,9 @@ magnitude within a few orbits while total B^2 stays bounded)."""
 
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
-from athenak_tpu.vis.readers import read_hst
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
+from athenak_jax.vis.readers import read_hst
 
 DECK = """
 <job>

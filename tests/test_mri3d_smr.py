@@ -10,9 +10,9 @@ stratified/HGB configuration), with per-level sheared ring tables.
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build, run
-from athenak_tpu.vis.readers import read_hst
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build, run
+from athenak_jax.vis.readers import read_hst
 
 DECK = """
 <job>

@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
-from athenak_tpu.mesh import Mesh
-from athenak_tpu.multigrid import MGPoisson
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
+from athenak_jax.mesh import Mesh
+from athenak_jax.multigrid import MGPoisson
 
 DECK = """
 <job>
@@ -141,8 +141,8 @@ def test_mg_smr_defect_convergence():
 def test_mg_matches_fft_on_uniform():
     """MG and the FFT fast path must agree on a uniform periodic mesh
     (both solve the same 2nd-order FD Poisson equation)."""
-    from athenak_tpu.bvals import BoundaryValues
-    from athenak_tpu.gravity import SelfGravity
+    from athenak_jax.bvals import BoundaryValues
+    from athenak_jax.gravity import SelfGravity
 
     pin, mesh, mg, u = _setup(DECK, gravity__threshold="1e-12")
     bvals = BoundaryValues(mesh)
@@ -245,8 +245,8 @@ def test_binary_gravity_smr(tmp_path, capsys):
     reaches threshold on the pgen state and the error report matches
     the reference's format (reference: test_mg_binary_gravity_cpu.py,
     defect-only asserts)."""
-    from athenak_tpu.main import build
-    from athenak_tpu.pgen import binary_gravity
+    from athenak_jax.main import build
+    from athenak_jax.pgen import binary_gravity
 
     pin = ParameterInput.from_string(BINARY_DECK)
     pin.set_value("job", "basename", f"{tmp_path}/binary")

@@ -10,9 +10,9 @@ import sys
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run, run_restart
-from athenak_tpu.vis.readers import read_binary, read_hst
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run, run_restart
+from athenak_jax.vis.readers import read_binary, read_hst
 
 DECK = """
 <job>
@@ -77,8 +77,8 @@ def _run_in(tmp_path, deck):
 def test_unknown_file_type_is_fatal():
     """A deck typo like file_type = binn must refuse to run, matching
     the reference output factory (reference: outputs.cpp:224-260)."""
-    from athenak_tpu.main import build
-    from athenak_tpu.outputs import make_outputs
+    from athenak_jax.main import build
+    from athenak_jax.outputs import make_outputs
     pin = ParameterInput.from_string(
         DECK.replace("file_type = bin\n", "file_type = binn\n"))
     mesh, phys, pgen, driver, state = build(pin)
@@ -177,7 +177,7 @@ def test_vtk_output_roundtrip(tmp_path):
         "<output3>\nfile_type = rst\ndt = 0.1",
         "<output3>\nfile_type = vtk\nvariable = mhd_w_bcc\ndt = 0.1")
     mesh, phys, driver, state = _run_in(tmp_path, deck)
-    from athenak_tpu.vis.readers import read_vtk
+    from athenak_jax.vis.readers import read_vtk
     vfiles = sorted(tmp_path.glob("outtest.mhd_w_bcc.*.vtk"))
     bfiles = sorted(tmp_path.glob("outtest.mhd_w_bcc.*.bin"))
     assert len(vfiles) >= 2

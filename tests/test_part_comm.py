@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import PartitionSpec as P
 
-from athenak_tpu.parallel import make_device_mesh
-from athenak_tpu.parallel.part_comm import exchange_particles
+from athenak_jax.parallel import make_device_mesh
+from athenak_jax.parallel.part_comm import exchange_particles
 
 
 def _key(r):

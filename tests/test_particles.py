@@ -8,8 +8,8 @@ import os
 
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build, run
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build, run
 
 DECK = """
 <job>
@@ -70,7 +70,7 @@ def test_particle_drift(tmp_path):
         v0 = np.asarray(state["prtcl_v"]).copy()
         assert x0.shape[0] == int(0.01 * 16 ** 3)
 
-        from athenak_tpu.outputs import make_outputs
+        from athenak_jax.outputs import make_outputs
         outs = make_outputs(pin, mesh, phys)
         state = driver.initialize(state)
         state = driver.execute(state, outputs=outs)

@@ -9,9 +9,9 @@ src/pgen/z4c/kerr_schild.cpp.
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.indices import IDN
-from athenak_tpu.main import build, run
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.indices import IDN
+from athenak_jax.main import build, run
 
 SHOCK_CLOUD = """
 <job>
@@ -201,7 +201,7 @@ def test_kerr_schild_constraints_and_evolution():
     mesh2, phys2, driver2, st2 = run(pin2)
     z = np.asarray(st2["u"])
     assert np.isfinite(z).all()
-    from athenak_tpu.z4c.z4c import I_ALPHA
+    from athenak_jax.z4c.z4c import I_ALPHA
     assert z[:, I_ALPHA].min() > 0.0
 
 
@@ -287,7 +287,7 @@ def test_robust_stability():
     mesh, phys, driver, state = run(pin)
     u = np.asarray(state["u"])
     assert np.isfinite(u).all()
-    from athenak_tpu.z4c.z4c import I_GXX, I_ALPHA
+    from athenak_jax.z4c.z4c import I_GXX, I_ALPHA
     # metric stays within ~100x the seeded 1e-10 noise of Minkowski
     assert np.abs(u[:, I_GXX] - 1.0).max() < 1e-7
     assert np.abs(u[:, I_ALPHA] - 1.0).max() < 1e-7

@@ -8,14 +8,14 @@ import math
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
 
 
 def test_tetrad_orthonormal():
     """e_(a)^mu g_munu e_(b)^nu = eta_ab on random points in Kerr."""
-    from athenak_tpu.gr.cks import metric
-    from athenak_tpu.radiation.tetrad import tetrad
+    from athenak_jax.gr.cks import metric
+    from athenak_jax.radiation.tetrad import tetrad
 
     rng = np.random.default_rng(7)
     x = rng.uniform(2.0, 8.0, 64)
@@ -39,7 +39,7 @@ def test_tetrad_orthonormal():
 
 
 def test_ricci_rotation_flat_zero():
-    from athenak_tpu.radiation.tetrad import ricci_rotation
+    from athenak_jax.radiation.tetrad import ricci_rotation
 
     x = np.linspace(1.5, 4.0, 8)
     om = ricci_rotation(x, x, x, 0.0, minkowski=True)
@@ -52,7 +52,7 @@ def test_ricci_rotation_flat_zero():
 def test_ricci_rotation_antisymmetry():
     """omega_(ab)c antisymmetric in its first two (flat) indices after
     lowering with eta — a structural identity of rotation coefficients."""
-    from athenak_tpu.radiation.tetrad import ricci_rotation
+    from athenak_jax.radiation.tetrad import ricci_rotation
 
     rng = np.random.default_rng(3)
     x = rng.uniform(2.5, 6.0, 32)
@@ -186,9 +186,9 @@ def test_angular_flux_conservation():
     over all angles gives zero (the edge fluxes are antisymmetric)."""
     import jax
     jax.config.update("jax_enable_x64", True)
-    from athenak_tpu.bvals import BoundaryValues
-    from athenak_tpu.mesh import Mesh
-    from athenak_tpu.radiation.radiation import Radiation
+    from athenak_jax.bvals import BoundaryValues
+    from athenak_jax.mesh import Mesh
+    from athenak_jax.radiation.radiation import Radiation
 
     deck = """
 <job>

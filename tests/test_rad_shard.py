@@ -18,9 +18,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build
-from athenak_tpu.parallel import make_device_mesh
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build
+from athenak_jax.parallel import make_device_mesh
 
 from test_rad_gr import BEAM_DECK, RAD_LWAVE_DECK
 
@@ -35,7 +35,7 @@ def _run(deck, dmesh, ncyc=2):
     driver.dmesh = dmesh
     state = driver.initialize(state)
     if dmesh is not None:
-        from athenak_tpu.parallel import shard_state
+        from athenak_jax.parallel import shard_state
         state = shard_state(state, dmesh)
         fn = jax.jit(driver.make_shard_cycle_fn(state))
     else:
@@ -46,7 +46,7 @@ def _run(deck, dmesh, ncyc=2):
     if dmesh is not None and any(
             lf.shape[0] != mesh.nmb_total
             for lf in jax.tree_util.tree_leaves(state)):
-        from athenak_tpu.parallel.shard_comm import (shard_layout,
+        from athenak_jax.parallel.shard_comm import (shard_layout,
                                                      unpad_state)
         state = unpad_state(
             state, shard_layout(mesh, dmesh.devices.size))
@@ -85,7 +85,7 @@ def test_rad_shard_hlo_no_allgather():
     dmesh = make_device_mesh(8)
     driver.dmesh = dmesh
     state = driver.initialize(state)
-    from athenak_tpu.parallel import shard_state
+    from athenak_jax.parallel import shard_state
     state = shard_state(state, dmesh)
     fn = driver.make_shard_cycle_fn(state)
     dt = jnp.asarray(driver.mesh.dt, dtype=state["u"].dtype)

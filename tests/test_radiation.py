@@ -9,9 +9,9 @@ import math
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run, build
-from athenak_tpu.radiation.geodesic_grid import GeodesicGrid
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run, build
+from athenak_jax.radiation.geodesic_grid import GeodesicGrid
 
 DECK = """
 <job>
@@ -164,7 +164,7 @@ def test_rad_relax_equilibrium():
     a T^4 + rho T/(gm-1) = const (reference: rad_relax.cpp +
     inputs/radiation/relax.athinput; gamma=2 so gm1=1):
     T^4 + T = 101 -> T_eq = 3.0890."""
-    from athenak_tpu.main import run as _run
+    from athenak_jax.main import run as _run
     pin = ParameterInput.from_string(RELAX_DECK)
     mesh, phys, driver, state = _run(pin)
     mbi = mesh.mb_indcs
@@ -189,7 +189,7 @@ def test_rad_relax_compton_equilibrium():
     T_rad -> T_gas while conserving gas+radiation energy, so the
     equilibrium is the same T^4 + T = 101 root as the absorption
     relax test."""
-    from athenak_tpu.main import run as _run
+    from athenak_jax.main import run as _run
     # pure scattering: kappa_s = 2 with inv_te ~ 0.1 gives a Compton
     # exchange rate ~ 4 ks inv_te jr ~ 7/time; the gas velocity is
     # EXPLICIT in the coupling (reference radiation_source.cpp u_tet
@@ -293,7 +293,7 @@ def test_rad_shadow():
     """The optically thick blob casts a shadow: the beam-lit region
     beside the cloud carries orders of magnitude more radiation energy
     than directly behind it (reference: rad_shadow.cpp)."""
-    from athenak_tpu.main import run as _run
+    from athenak_jax.main import run as _run
     pin = ParameterInput.from_string(SHADOW_DECK)
     mesh, phys, driver, state = _run(pin)
     er = np.asarray(phys.rad.coord_energy_density(state))
@@ -363,7 +363,7 @@ def test_rad_diffusion_pulse():
     diffusion rate: at time t the comoving solution has width factor
     W(t) = 4 D nu^2 (t0'+t') + 1 with D = 1/(3 kappa_s)
     (reference: rad_diffusion.cpp ICs evaluated at a later time)."""
-    from athenak_tpu.main import run as _run
+    from athenak_jax.main import run as _run
     tlim = 1.0
     pin = ParameterInput.from_string(DIFF_DECK.format(tlim=tlim))
     mesh, phys, driver, state = _run(pin)

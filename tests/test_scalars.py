@@ -6,8 +6,8 @@ src/eos/ideal_hyd.cpp scalar c2p blocks)
 
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build, run
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build, run
 
 DECK = """
 <job>

@@ -1,7 +1,7 @@
 """Explicit shard_map halo exchange: correctness + communication pattern.
 
 The reference exchanges ghost zones with rank-packed point-to-point MPI
-messages (reference: src/bvals/bvals_cc.cpp:42-255).  The TPU-native
+messages (reference: src/bvals/bvals_cc.cpp:42-255).  The JAX
 equivalent is a shard_map cycle whose halo exchange ships only ng-thick
 neighbor slabs via jax.lax.ppermute.  These tests assert:
 
@@ -16,9 +16,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build
-from athenak_tpu.parallel import make_device_mesh
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build
+from athenak_jax.parallel import make_device_mesh
 
 DECK = """
 <job>

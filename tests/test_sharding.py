@@ -1,6 +1,6 @@
 """Block-axis sharding: sharded cycle must match the single-device cycle.
 
-Exercises the TPU-native analogue of the reference's MPI domain
+Exercises the analogue of the reference's MPI domain
 decomposition (reference: src/mesh/load_balance.cpp, bvals_cc.cpp) on the
 8-virtual-device CPU mesh configured in conftest.py.
 """
@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build
-from athenak_tpu.parallel import (block_sharding, make_device_mesh,
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build
+from athenak_jax.parallel import (block_sharding, make_device_mesh,
                                   shard_state)
 
 DECK = """

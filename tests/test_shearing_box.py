@@ -8,9 +8,9 @@ import math
 
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build, run
-from athenak_tpu.indices import IVX, IVY
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build, run
+from athenak_jax.indices import IVX, IVY
 
 BASE = """
 <job>

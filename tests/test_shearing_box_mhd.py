@@ -11,8 +11,8 @@ originally provided by C. Gammie & B. Johnson).
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
 
 # dByc(t) for t in [0, 3] every 0.01
 DBYC = np.array([

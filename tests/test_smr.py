@@ -13,8 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build
 
 
 def _deck(nx1=32, nx2=32, nx3=1, mb=8, extra="", prob="advection",
@@ -287,7 +287,7 @@ k_adi = 1.0
 r_crit = 8.0
 """
     import os
-    from athenak_tpu.main import run
+    from athenak_jax.main import run
     pin = ParameterInput.from_string(deck)
     mesh, phys, driver, state = run(pin)
     assert mesh.multilevel and mesh.nmb_total > 8

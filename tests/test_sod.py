@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.indices import IDN, IEN, IM1
-from athenak_tpu.main import run
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.indices import IDN, IEN, IM1
+from athenak_jax.main import run
 
 DECK = """
 <job>

@@ -10,12 +10,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
-from athenak_tpu.ops.eos import EOSData
-from athenak_tpu.ops.eos_sr import (cons_to_prim_sr_hydro,
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
+from athenak_jax.ops.eos import EOSData
+from athenak_jax.ops.eos_sr import (cons_to_prim_sr_hydro,
                                     prim_to_cons_sr_hydro)
-from athenak_tpu.indices import IDN, IEN, IVX
+from athenak_jax.indices import IDN, IEN, IVX
 
 
 def test_sr_c2p_round_trip():

@@ -6,12 +6,12 @@
 import jax.numpy as jnp
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
-from athenak_tpu.ops.eos import EOSData
-from athenak_tpu.ops.eos_sr import (cons_to_prim_sr_mhd,
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
+from athenak_jax.ops.eos import EOSData
+from athenak_jax.ops.eos_sr import (cons_to_prim_sr_mhd,
                                     prim_to_cons_sr_mhd)
-from athenak_tpu.indices import IDN, IEN
+from athenak_jax.indices import IDN, IEN
 
 
 def test_sr_mhd_c2p_round_trip():

@@ -7,10 +7,10 @@ src/srcterms/srcterms.cpp:113-204, ismcooling.hpp:19-57).
 import jax.numpy as jnp
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build, run
-from athenak_tpu.srcterms import ism_cool_fn
-from athenak_tpu.units import Units
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build, run
+from athenak_jax.srcterms import ism_cool_fn
+from athenak_jax.units import Units
 
 ACCEL_DECK = """
 <job>

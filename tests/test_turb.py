@@ -7,9 +7,9 @@ tst inputs: inputs/hydro/turb.athinput)
 
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
-from athenak_tpu.indices import IDN, IEN
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
+from athenak_jax.indices import IDN, IEN
 
 DECK = """
 <job>

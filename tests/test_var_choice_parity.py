@@ -10,9 +10,9 @@ raw particle dump handled by the trk output type, not a grid variable.
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build
-from athenak_tpu.outputs.variables import resolve
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build
+from athenak_jax.outputs.variables import resolve
 
 HYDRO_NAMES = [
     "hydro_u_d", "hydro_u_m1", "hydro_u_m2", "hydro_u_m3", "hydro_u_e",

@@ -7,8 +7,8 @@ import os
 
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
 
 DECK = """
 <job>
@@ -71,8 +71,8 @@ def _run(tmp_path):
 def test_bin_to_athdf_roundtrip(tmp_path):
     import h5py
 
-    from athenak_tpu.vis.convert import convert
-    from athenak_tpu.vis.readers import read_binary
+    from athenak_jax.vis.convert import convert
+    from athenak_jax.vis.readers import read_binary
 
     _run(tmp_path)
     binfile = sorted(glob.glob(f"{tmp_path}/Vis.mhd_w_bcc.*.bin"))[0]
@@ -103,7 +103,7 @@ def test_bin_to_athdf_roundtrip(tmp_path):
 
 
 def test_plot_slice_and_hst(tmp_path):
-    from athenak_tpu.vis.plot import plot_hst, plot_slice
+    from athenak_jax.vis.plot import plot_hst, plot_slice
 
     _run(tmp_path)
     binfile = sorted(glob.glob(f"{tmp_path}/Vis.mhd_w_bcc.*.bin"))[0]

@@ -7,8 +7,8 @@ constraint behavior.
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build, run
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build, run
 
 DECK = """
 <job>

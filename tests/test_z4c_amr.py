@@ -11,8 +11,8 @@ interpolation (compact_object_tracker.cpp).
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build
 
 DECK = """
 <job>
@@ -77,8 +77,8 @@ def test_device_interp_matches_host():
     """On-device multi-block trilinear interp == host interp_to_points."""
     import jax
 
-    from athenak_tpu.z4c.weyl import interp_to_points
-    from athenak_tpu.z4c.z4c_amr import device_interp
+    from athenak_jax.z4c.weyl import interp_to_points
+    from athenak_jax.z4c.z4c_amr import device_interp
 
     mesh, phys, pgen, driver, state = _build("method = trivial")
     u = np.asarray(state["u"])

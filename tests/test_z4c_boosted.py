@@ -12,9 +12,9 @@ import os
 
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
-from athenak_tpu.z4c.z4c import I_ALPHA, I_CHI, I_THETA
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
+from athenak_jax.z4c.z4c import I_ALPHA, I_CHI, I_THETA
 
 VEL = 0.5
 TLIM = 2.0
@@ -74,7 +74,7 @@ def test_boosted_puncture_initial_data():
     (violation is pure truncation error away from the puncture)."""
     pin = ParameterInput.from_string(DECK.replace(f"tlim = {TLIM}",
                                                   "tlim = 0.0"))
-    from athenak_tpu.main import build
+    from athenak_jax.main import build
     mesh, phys, pgen, driver, state = build(pin)
     u = np.asarray(state["u"])
     assert np.isfinite(u).all()

@@ -6,9 +6,9 @@ inputs/z4c/ one_puncture decks)
 
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import run
-from athenak_tpu.z4c.z4c import I_ALPHA, I_CHI
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import run
+from athenak_jax.z4c.z4c import I_ALPHA, I_CHI
 
 DECK = """
 <job>

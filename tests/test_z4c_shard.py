@@ -14,9 +14,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build
-from athenak_tpu.parallel import make_device_mesh
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build
+from athenak_jax.parallel import make_device_mesh
 
 DECK = """
 <job>
@@ -69,7 +69,7 @@ def _run(dmesh, ncyc=2):
     driver.dmesh = dmesh
     state = driver.initialize(state)
     if dmesh is not None:
-        from athenak_tpu.parallel import shard_state
+        from athenak_jax.parallel import shard_state
         state = shard_state(state, dmesh)
         fn = jax.jit(driver.make_shard_cycle_fn(state))
     else:
@@ -104,7 +104,7 @@ def test_z4c_shard_cycle_hlo_no_allgather():
     dmesh = make_device_mesh(8)
     driver.dmesh = dmesh
     state = driver.initialize(state)
-    from athenak_tpu.parallel import shard_state
+    from athenak_jax.parallel import shard_state
     state = shard_state(state, dmesh)
     fn = driver.make_shard_cycle_fn(state)
     dt = jnp.asarray(driver.mesh.dt, dtype=state["u"].dtype)

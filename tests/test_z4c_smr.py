@@ -5,8 +5,8 @@ meshes) and 8th-order FD operators (nghost=5).
 
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build, run
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build, run
 
 DECK = """
 <job>
@@ -184,7 +184,7 @@ punc_ADM_mass = 1.0
     mesh, phys, driver, state = run(pin)
     u = np.asarray(state["u"])
     assert np.isfinite(u).all()
-    from athenak_tpu.z4c.z4c import I_ALPHA, I_CHI
+    from athenak_jax.z4c.z4c import I_ALPHA, I_CHI
     alpha = u[:, I_ALPHA]
     chi = u[:, I_CHI]
     assert alpha.min() > 0.0

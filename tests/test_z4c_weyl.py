@@ -11,11 +11,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from athenak_tpu.athinput import ParameterInput
-from athenak_tpu.main import build
-from athenak_tpu.z4c.weyl import (CompactObjectTracker, WaveExtractor,
+from athenak_jax.athinput import ParameterInput
+from athenak_jax.main import build
+from athenak_jax.z4c.weyl import (CompactObjectTracker, WaveExtractor,
                                   swsh_m2)
-from athenak_tpu.z4c.z4c import I_BETAX
+from athenak_jax.z4c.z4c import I_BETAX
 
 DECK = """
 <job>
@@ -64,7 +64,7 @@ def _state(pgen, amp=1e-6):
 
 def test_psi4_minkowski_zero():
     mesh, phys, state = _state("z4c_linear_wave", amp=0.0)
-    from athenak_tpu.z4c.weyl import weyl_scalars
+    from athenak_jax.z4c.weyl import weyl_scalars
     rp, ip = jax.jit(lambda u: weyl_scalars(phys, u))(state["u"])
     mbi = mesh.mb_indcs
     sl = (slice(None), slice(mbi.ks, mbi.ke + 1),
@@ -78,7 +78,7 @@ def test_psi4_wave_signal():
     clearly above round-off but O(amp) small."""
     amp = 1e-6
     mesh, phys, state = _state("z4c_linear_wave", amp=amp)
-    from athenak_tpu.z4c.weyl import weyl_scalars
+    from athenak_jax.z4c.weyl import weyl_scalars
     rp, ip = jax.jit(lambda u: weyl_scalars(phys, u))(state["u"])
     mbi = mesh.mb_indcs
     sl = (slice(None), slice(mbi.ks, mbi.ke + 1),
@@ -116,7 +116,7 @@ def test_waveform_output_runs(tmp_path):
     """End-to-end: a Z4c run with file_type=wave writes mode and tracker
     files with finite values."""
     import os
-    from athenak_tpu.main import run
+    from athenak_jax.main import run
     deck = DECK.format(pgen="z4c_one_puncture", amp=1.0) + """
 punc_rad = 1.0
 
